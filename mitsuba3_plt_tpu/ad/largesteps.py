@@ -5,7 +5,7 @@ largesteps.py:55, after Nicolet et al. 2021 "Large Steps in Inverse
 Rendering of Geometry"): optimize in the differential domain u = (I + l*L)v
 so gradient steps stay smooth; recover vertices by solving the SPD system
 with conjugate gradients (jax.scipy CG on a segment-sum matvec — no sparse
-factorization needed on TPU).
+factorization needed).
 """
 from __future__ import annotations
 
@@ -58,7 +58,7 @@ class LargeSteps:
     def from_differential(self, u, tol: float = 1e-6, maxiter: int = 200):
         """u -> v: CG solve of the SPD system (largesteps.py from_differential;
         the reference uses a Cholesky factorization — CG is the matrix-free
-        TPU-native equivalent)."""
+        equivalent)."""
         v, _ = jax.scipy.sparse.linalg.cg(
             self._laplacian_matvec, jnp.asarray(u, jnp.float32),
             tol=tol, maxiter=maxiter,

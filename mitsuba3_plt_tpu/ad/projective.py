@@ -8,7 +8,7 @@ machinery (PSIntegrator, src/python/python/ad/integrators/common.py:785-1298,
 direct_projective/prb_projective, scene silhouette API
 src/render/scene.cpp:369-434).
 
-TPU-native formulation (edge sampling of the primary-visibility boundary):
+Array formulation (edge sampling of the primary-visibility boundary):
 
     dI/dtheta = interior(AD)  +  sum over view silhouettes of
                 w(px) * (L_minus - L_plus) * (n_hat . d px(theta)/d theta) dl

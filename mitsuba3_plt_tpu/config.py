@@ -1,4 +1,4 @@
-"""Render-mode configuration (the TPU-native analog of Mitsuba's compiled
+"""Render-mode configuration (the array-program analog of Mitsuba's compiled
 variants, resources/mitsuba.conf.template:86-382).
 
 A `RenderConfig` is a small hashable static dataclass passed through jit:

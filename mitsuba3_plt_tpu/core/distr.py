@@ -106,7 +106,7 @@ def build_alias_table(weights: np.ndarray):
     """Host-side O(K) alias-method table -> (prob [K], alias [K]).
 
     Sampling with an alias table is a single gather (no binary search), which
-    is the TPU-friendly path for large emitter counts.
+    is the vectorization-friendly path for large emitter counts.
     """
     w = np.asarray(weights, np.float64)
     k = len(w)

@@ -1,4 +1,4 @@
-"""Core math utilities for the TPU-native renderer.
+"""Core math utilities for the renderer.
 
 Vectorized special functions, numeric helpers and epsilon conventions.
 Behavioural parity targets (reference, for documentation only — independent
@@ -326,23 +326,26 @@ def sinc(x):
     return jnp.where(jnp.abs(x) < 1e-8, 1.0, jnp.sin(x_safe) / x_safe)
 
 
-def small_gather(table, idx, threshold: int = 128):
-    """Row fetch table[idx] for small tables via one-hot matmul on the MXU.
+def matmul_hi(a, b):
+    """a @ b at full f32 precision: on the GPU a default-precision f32
+    contraction may run in TF32 (~3 decimal digits), which would shift
+    camera rays, colours and Mueller frames."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
-    TPU microbenchmarks (this repo's perf notes): a random row gather inside
-    a lax.scan body costs ~60 ms for 2M lanes x 32 cols, while the one-hot
-    [N, T] @ [T, D] contraction runs in a few ms for T <= ~128. Falls back
-    to a plain gather for larger tables. Exact for 0/1 selectors.
+
+def small_gather(table, idx, threshold: int = 128):
+    """Row fetch table[idx] for small tables via a one-hot [N, T] @ [T, D]
+    contraction at full f32 precision (exact for 0/1 selectors), chosen
+    over a random row gather inside scan bodies. Falls back to a plain
+    gather for larger tables. Which is faster on the GPU is ROADMAP S6.
     """
     T = table.shape[0]
     if table.ndim != 2:
         return table[idx]
     if T <= 8:
         # tiny table: chain of broadcast selects — one fused elementwise
-        # pass over [N, D] with the T rows living in registers. (The
-        # earlier compare+masked-sum materialized a [N, T, D] intermediate:
-        # 1.1 GB / 1.9 ms per fetch at 2M lanes x 24 cols, traced as the
-        # dominant fusion of both render scans.)
+        # pass over [N, D] with the T rows living in registers (a
+        # compare+masked-sum would materialize a [N, T, D] intermediate)
         out = jnp.broadcast_to(table[0], (idx.shape[0], table.shape[1]))
         for t in range(1, T):
             out = jnp.where((idx == t)[:, None], table[t], out)
@@ -361,7 +364,7 @@ def small_gather(table, idx, threshold: int = 128):
 
 def select_along(rows, idx):
     """rows[n, idx[n]] for small static last dims via compare+masked-sum
-    (take_along_axis is a per-lane gather — tens of ms at 2M lanes in-scan)."""
+    (take_along_axis would be a per-lane gather inside the scan)."""
     T = rows.shape[-1]
     iota = jnp.arange(T, dtype=idx.dtype)
     return jnp.sum(jnp.where(idx[..., None] == iota, rows, 0), axis=-1)

@@ -1,4 +1,4 @@
-"""Stateless counter-based sampler for Monte Carlo rendering on TPU.
+"""Stateless counter-based sampler for Monte Carlo rendering on accelerators.
 
 Design: instead of a mutable PCG32 state per lane (reference:
 include/mitsuba/render/sampler.h:63-180), every sample value is a pure hash

@@ -17,6 +17,8 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
+from .math import matmul_hi as _mm
+
 CIE_MIN = 360.0
 CIE_MAX = 830.0
 CIE_SAMPLES = 95
@@ -62,10 +64,9 @@ def cie1931_xyz(wavelengths):
     """CIE XYZ color matching values at `wavelengths` [nm] -> [..., 3].
 
     Gather-free: the linear interpolation is expressed as a soft one-hot
-    [L, K] @ [K, 3] MXU contraction (exact — the weight row holds 1-f and f
-    at the two bracketing table entries). Six per-lane table gathers cost
-    15-60 ms per 2M lanes on v5e inside hot loops; this contraction is ~4 ms
-    (this repo's TPU perf notes / core.math.small_gather rationale)."""
+    [L, K] @ [K, 3] contraction at full f32 precision (exact — the weight
+    row holds 1-f and f at the two bracketing table entries), in place of
+    six per-lane table gathers inside hot loops."""
     flat = jnp.asarray(wavelengths, jnp.float32).reshape(-1)
     t = (flat - CIE_MIN) / (CIE_MAX - CIE_MIN) * (CIE_SAMPLES - 1)
     i = jnp.clip(jnp.floor(t).astype(jnp.int32), 0, CIE_SAMPLES - 2)
@@ -74,7 +75,7 @@ def cie1931_xyz(wavelengths):
     W = jnp.where(k == i[:, None], 1.0 - f, 0.0) + jnp.where(
         k == i[:, None] + 1, f, 0.0
     )  # [L, K]
-    xyz = W @ CIE_XYZ_TABLE.T.astype(jnp.float32)  # [L, 3]
+    xyz = _mm(W, CIE_XYZ_TABLE.T.astype(jnp.float32))  # [L, 3]
     inside = (flat >= CIE_MIN) & (flat <= CIE_MAX)
     xyz = jnp.where(inside[:, None], xyz, 0.0)
     return xyz.reshape(jnp.shape(wavelengths) + (3,))
@@ -148,11 +149,11 @@ def spectrum_to_xyz(values, wavelengths, pdf_weights=None):
 
 
 def xyz_to_srgb(xyz):
-    return xyz @ XYZ_TO_SRGB.T
+    return _mm(xyz, XYZ_TO_SRGB.T)
 
 
 def srgb_to_xyz(rgb):
-    return rgb @ SRGB_TO_XYZ.T
+    return _mm(rgb, SRGB_TO_XYZ.T)
 
 
 def luminance_rgb(rgb):

@@ -64,9 +64,8 @@ def make_integrator(cfg: dict):
 
         d = _int(cfg, "max_depth", 6)
         # The solve phase materializes [max_depth * N] bounce rows; keep
-        # depth x wavefront under ~12.6M rows (HBM budget measured on
-        # disk.xml, max_depth=12: a 2^21 wavefront flattens to an 11 GB
-        # [D*N, 3] tensor and OOMs the 16 GB chip).
+        # depth x wavefront under ~12.6M rows (at max_depth=12 a 2^21
+        # wavefront would flatten to an 11 GB [D*N, 3] tensor).
         return PLTIntegrator(
             max_depth=d,
             rr_depth=_int(cfg, "rr_depth", 5),

@@ -79,11 +79,8 @@ class PathIntegrator:
             return carry, None
 
         carry = (ray.o, ray.d, L, beta, eta, active, prev_pdf, prev_delta, prev_p)
-        # NOTE: bounce 0 is NOT peeled out for coherent-kernel routing —
-        # measured on cbox.xml the camera bounce is <10% of pass time, the
-        # peel gains ~0.3% and DOUBLES XLA compile time (113.7 vs 113.3
-        # ms/spp, 275 s vs 108 s compile); incoherent-capable kernels
-        # (q brute / mask-sorted clusters) serve every bounce instead
+        # bounce 0 is not peeled out of the scan: one routing serves every
+        # bounce, and a peeled copy of the body would double compile time
         carry, _ = jax.lax.scan(
             body, carry, jnp.arange(self.max_depth, dtype=jnp.uint32)
         )

@@ -11,7 +11,7 @@ Phase 2 (`solve_phase`, reference plt.py:174-218): for every prefix length i,
 add (a) the emissive-hit replay with MIS vs the last non-delta pdf
 (plt.py:315-405) and (b) an NEE replay with wbsdf MIS (plt.py:221-300).
 
-TPU-native restructuring of the O(depth^2) replay: the reference's
+Restructuring of the O(depth^2) replay: the reference's
 `replay_path` weight product prod_{j<i} wbsdf_weight(bounce_j)
 (plt.py:408-472) does not depend on the prefix index i (coherence opl is
 propagated but the replay weights are coherence-independent, exactly as in
@@ -105,9 +105,8 @@ class PLTIntegrator:
     max_depth: int = 8
     rr_depth: int = 4
     # the stacked [max_depth, N] bounce buffer dominates memory: cap the
-    # wavefront so buffer + solve temporaries stay within a v5e-lite HBM
-    # (~1.4 GB at 2M lanes / depth 6 now that the wave-eval no longer
-    # materializes [N, 81, C, 3] intermediates)
+    # wavefront so buffer + solve temporaries stay bounded (the right
+    # size on the H100 is ROADMAP S4)
     max_wavefront: int = 1 << 21
     emissive_sourcing_area: float = 1e-4
     distant_sourcing_area: float = 1e-7
@@ -273,9 +272,8 @@ class PLTIntegrator:
         )
 
         # hoist the CIE colour interpolation out of the depth loop: the
-        # sampled wavelengths are loop-invariant and cie1931_xyz costs
-        # ~12 ms/2M lanes (one-hot [N*C, 95] MXU contraction) — recomputing
-        # it at every NEE depth was ~30% of the whole solve phase
+        # sampled wavelengths are loop-invariant, so one one-hot
+        # [N*C, 95] contraction serves every NEE depth
         rgb_colour = None
         if not cfg.spectral:
             from ..core import spectrum as spec
@@ -558,14 +556,14 @@ class PLTIntegrator:
         Stokes [N, 4, C] under a polarized config (full Mueller chain, ref
         roughgrating.cpp:925-999 / bsdf.h:379-620 polarized Spectrum).
 
-        FUSED single-scan execution (round-2 perf): because the replay
+        FUSED single-scan execution: because the replay
         weights are coherence-independent (the same fact that collapsed the
         O(D^2) replay to one cumprod — see the module docstring), the
         prefix product alpha_i is a RUNNING product available at bounce
         time, so the emissive and NEE terms of solve_phase can be
         accumulated in the SAME scan that samples the path. This removes
         the stacked [D, N, ...] bounce buffer entirely: no
-        dynamic-update-slice writes (measured 18.6 ms/pass), no solve-side
+        dynamic-update-slice writes, no solve-side
         re-reads, no duplicated SurfaceInteraction reconstruction. The
         math, term order, sampler dimensions, and masking are identical to
         sample_phase + solve_phase (kept for the spectrograph experiment,

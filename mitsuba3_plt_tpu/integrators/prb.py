@@ -1,4 +1,4 @@
-"""Path-Replay Backpropagation (PRB) — TPU-native formulation.
+"""Path-Replay Backpropagation (PRB) — array formulation.
 
 Functional twin of the reference's prb plugin
 (src/python/python/ad/integrators/prb.py:64-251). The reference needs a

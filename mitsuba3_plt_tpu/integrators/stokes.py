@@ -362,8 +362,8 @@ class StokesIntegrator:
             tgt = jnp.where(
                 degenerate[..., None], cur, tgt / jnp.maximum(tgt_len, 1e-12)
             )
-            # planar rotator apply (the einsum's dot_general cost ~1.6
-            # ms/spp at a 2M wavefront; the rotator has 5 live entries)
+            # planar rotator apply (the rotator has 5 live entries; an
+            # einsum would contract all 16)
             R = mu.p_rotate_stokes_basis(forward, cur, tgt)
             s4 = mu.p_apply(R, (S[:, 0], S[:, 1], S[:, 2], S[:, 3]))
             S = _s_stack(s4, S.shape[0], S.shape[-1])

@@ -1,6 +1,6 @@
 """BSDF framework: flags, context, material table, masked-dispatch.
 
-TPU-native replacement for the reference's virtual-call plugin dispatch
+Array-program replacement for the reference's virtual-call plugin dispatch
 (include/mitsuba/render/bsdf.h): materials live in a struct-of-arrays table;
 a wavefront is evaluated by running every *present* BSDF type on all lanes
 and masking — the idiomatic XLA formulation of Dr.Jit's vcall grouping
@@ -229,13 +229,11 @@ class MaterialTable:
         Small tables (M <= 8, the common case): each field is a chain of
         broadcast selects over the M rows — the rows are trace-time
         constants living in registers, so every field FUSES INTO ITS
-        CONSUMER and no per-lane buffer materializes at all. (The previous
-        packed [N, 55] one-fetch buffer cost 422 MB at a 2M wavefront, and
-        each downstream column slice re-read full-width tiles — traced as
-        ~4 ms/bounce of pure HBM traffic.)
+        CONSUMER and no per-lane buffer materializes at all (a packed
+        [N, 55] one-fetch buffer would be re-read by every column slice).
 
         Larger tables: one packed [M, D] f32 matrix + a single fetch
-        (in-loop gathers cost ~2 ms per 256k lanes on TPU); integer fields
+        instead of one in-loop gather per field; integer fields
         are exact in f32 (all values < 2^24)."""
         fields = []
         for f in dataclasses.fields(self):
@@ -280,7 +278,7 @@ class MaterialTable:
         packed = jnp.concatenate(parts, axis=-1)  # [M, D]
         from ..core.math import small_gather
 
-        rows = small_gather(packed, midx)  # [N, D] — ONE fetch (MXU one-hot)
+        rows = small_gather(packed, midx)  # [N, D] — ONE fetch (one-hot contraction)
         out = {}
         off = 0
         for name, w, (dt, nd) in zip(names, widths, dtypes):

@@ -11,8 +11,7 @@ whose implicit Stokes bases follow the reference convention (light travels
 -wo_hat -> +wi_hat, bases = stokes_basis of those local directions; cf.
 src/bsdfs/conductor.cpp:270-305) — converted to world bases by the caller via
 `to_world_mueller`. Planar instead of [N, 4, 4, C]: every jnp.stack lowers
-to a materializing XLA concatenate (~4 GB/bounce of HBM traffic at a 500k
-polarized wavefront, measured round 5); planes fuse.
+to a materializing XLA concatenate; planes fuse.
 """
 from __future__ import annotations
 

@@ -8,7 +8,7 @@ vndf (per-incident-slice visible-NDF warp densities), luminance (per-slice
 importance), spectra or rgb (reflectance over the *warped* sample square),
 and a jacobian flag.
 
-TPU-first deviations from the reference (documented, self-consistent):
+Deviations from the reference (documented, self-consistent):
 - the reference's Marginal2D parameter interpolation (lazy 4-slice bilinear
   CDF mixing, include/mitsuba/core/distr_2d.h) is replaced by STOCHASTIC
   SLICE MIXTURE sampling: each lane picks one neighboring (phi_i, theta_i)

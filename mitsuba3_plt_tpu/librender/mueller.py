@@ -101,7 +101,7 @@ def rotator(theta):
 def rotated_element(theta, M):
     R = rotator(theta)
     Rt = jnp.swapaxes(R, -1, -2)
-    return Rt @ M @ R
+    return m.matmul_hi(m.matmul_hi(Rt, M), R)
 
 
 def specular_reflection_dielectric(cos_theta_i, eta):
@@ -175,12 +175,12 @@ def rotate_mueller_basis(
 ):
     R_in = rotate_stokes_basis(in_forward, in_basis_current, in_basis_target)
     R_out = rotate_stokes_basis(out_forward, out_basis_current, out_basis_target)
-    return R_out @ M @ jnp.swapaxes(R_in, -1, -2)
+    return m.matmul_hi(m.matmul_hi(R_out, M), jnp.swapaxes(R_in, -1, -2))
 
 
 def rotate_mueller_basis_collinear(M, forward, basis_current, basis_target):
     R = rotate_stokes_basis(forward, basis_current, basis_target)
-    return R @ M @ jnp.swapaxes(R, -1, -2)
+    return m.matmul_hi(m.matmul_hi(R, M), jnp.swapaxes(R, -1, -2))
 
 
 # --- planar Mueller representation --------------------------------------------
@@ -188,10 +188,8 @@ def rotate_mueller_basis_collinear(M, forward, basis_current, basis_target):
 # The hot polarized transport keeps Mueller values as 16 SEPARATE row-major
 # planes (each [N, C] or a broadcastable smaller array) instead of a stacked
 # [N, 4, 4, C] tensor: every jnp.stack lowers to an XLA concatenate, which
-# materializes a 96 MB buffer per 2M-lane wavefront — profiling the
-# polarized Cornell box showed ~4 GB of pure stack/unstack HBM traffic per
-# bounce (~65 ms/spp), while the planar form fuses into the surrounding
-# elementwise cluster. `None` marks a STRUCTURALLY ZERO plane, giving
+# materializes a full-wavefront buffer, while the planar form fuses into the
+# surrounding elementwise cluster. `None` marks a STRUCTURALLY ZERO plane, giving
 # trace-time sparsity: a depolarizer is one live plane, a Fresnel
 # reflection eight — products prune automatically.
 
@@ -424,7 +422,7 @@ def matmul_spectral(A, B):
 
     Unrolled into [..., C] vector FMAs: the einsum's dot_general lowering
     batches over (..., c) with 4x4 contractions and forces layout
-    transposes in/out of the render scan (round-4 polarized profiling)."""
+    transposes in/out of the render scan."""
     rows = []
     for i in range(4):
         cols = []

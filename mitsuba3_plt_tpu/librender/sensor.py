@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core import frame as fr
+from ..core.math import matmul_hi as _mm
 
 SENSOR_PERSPECTIVE = 0
 SENSOR_ORTHOGRAPHIC = 1
@@ -214,7 +215,8 @@ class Sensor:
             y = (1.0 - 2.0 * v) * self.ortho_scale[1]
             o_cam = jnp.stack([x, y, jnp.zeros_like(x)], axis=-1)
             d_cam = jnp.asarray([0.0, 0.0, 1.0], jnp.float32)
-            o = jnp.einsum("nij,nj->ni", Rb, o_cam) + tb
+            o = jnp.einsum("nij,nj->ni", Rb, o_cam,
+                           precision=jax.lax.Precision.HIGHEST) + tb
             d = Rb[..., :, 2]
             return o, fr.normalize(d)
 
@@ -237,8 +239,8 @@ class Sensor:
             if aperture_uv is None:
                 aperture_uv = jnp.stack([u, v], -1)
             d_local = _warp.square_to_cosine_hemisphere(aperture_uv)
-            o = o_cam @ R.T + t
-            d = d_local @ R.T
+            o = _mm(o_cam, R.T) + t
+            d = _mm(d_local, R.T)
             return o, fr.normalize(d)
 
         if self.stype_static in (SENSOR_ORTHOGRAPHIC, SENSOR_DISTANT):
@@ -248,8 +250,8 @@ class Sensor:
             d_cam = jnp.broadcast_to(
                 jnp.asarray([0.0, 0.0, 1.0], jnp.float32), o_cam.shape
             )
-            o = o_cam @ R.T + t
-            d = d_cam @ R.T
+            o = _mm(o_cam, R.T) + t
+            d = _mm(d_cam, R.T)
             return o, fr.normalize(d)
 
         tx = self.tan_half_x
@@ -271,10 +273,10 @@ class Sensor:
                 [p_lens, jnp.zeros_like(p_lens[..., :1])], axis=-1
             )
             d_cam = p_focus - o_cam
-            o = o_cam @ R.T + t
-            d = fr.normalize(d_cam @ R.T)
+            o = _mm(o_cam, R.T) + t
+            d = fr.normalize(_mm(d_cam, R.T))
             return o, d
 
         o = jnp.broadcast_to(t, d_cam.shape)
-        d = fr.normalize(d_cam @ R.T)
+        d = fr.normalize(_mm(d_cam, R.T))
         return o, d

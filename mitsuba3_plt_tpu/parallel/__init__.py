@@ -1,6 +1,6 @@
 """Multi-device rendering: shard the camera wavefront over a jax.sharding.Mesh.
 
-TPU-native replacement for the reference's single-node parallelism
+Array-program replacement for the reference's single-node parallelism
 (nanothread tile loop, src/render/integrator.cpp:158-241 and the 2^32-lane
 Dr.Jit wavefront, integrator.cpp:246-355): lanes (pixel x spp samples) are
 sharded across devices with shard_map; every device renders its slice of the

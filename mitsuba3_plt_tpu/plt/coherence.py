@@ -1,6 +1,6 @@
 """PLT coherence model: wave-packet angular-variance tracking.
 
-TPU-native functional twin of the reference's Coherence / GeneralizedRadiance
+Functional twin of the reference's Coherence / GeneralizedRadiance
 (include/mitsuba/plt/plt.h:22-171): a pytree of batched arrays; all methods
 are pure functions. The diffusivity matrix `dmat` [N, 2, 2] characterizes the
 wave distribution function's angular variance around the mean propagation

@@ -1,9 +1,9 @@
 """Analytic diffraction-grating model (sinusoidal / rectangular / linear,
 optionally radial), vectorized over wavefront lanes.
 
-TPU-native functional twin of the reference DiffractionGrating
+Functional twin of the reference DiffractionGrating
 (include/mitsuba/plt/diffractiongrating.h:32-290). Key differences from the
-reference's formulation, chosen for TPU efficiency:
+reference's formulation, chosen for vectorized execution:
 
   * lobe intensities for ALL orders 0..L are computed in one shot from a
     single Miller-recurrence Bessel sweep (core/math.bessel_jn) instead of

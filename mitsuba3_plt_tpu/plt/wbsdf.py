@@ -18,9 +18,11 @@ Per-type behavior mirrored from the reference:
                         (roughgrating.cpp:676-970), far-field alpha as pdf
                         (roughgrating.cpp:1009-1034)
 
-TPU-native design notes: the eval lobe sum is a fully vectorized
+Design notes: the eval lobe sum is a fully vectorized
 [lanes x lobes^2 x channels] broadcast with a single Bessel sweep per
-(lane, channel); no per-order special-function calls.
+(lane, channel); no per-order special-function calls. On the GPU the
+sample chain and the lobe sum run as fused Pallas kernels
+(ops/grating_pallas.py); `ops.use_fused_kernels` decides.
 """
 from __future__ import annotations
 
@@ -49,14 +51,9 @@ from ..librender.bsdf import (
     BSDF_ROUGH_GRATING,
 )
 from ..librender.records import BSDFSample
+from .. import ops
 from . import grating as gr
 from .coherence import Coherence, GeneralizedRadiance
-
-# Fused Pallas lobe-sum kernel for the wave-eval on TPU (see
-# ops/grating_pallas.py). Flip off to force the pure-XLA reference chain
-# (used by the equivalence test and available for debugging).
-_PALLAS_LOBE_SUM = True
-
 
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +106,39 @@ def _make_grating(p, uv):
     )
 
 
+def grating_sample_xla(wi, u2, lobe_u2, wl_um, alpha, g, half, ndf):
+    """The roughgrating sample chain in plain XLA (roughgrating.cpp:449-595):
+    visible-normal sample, grating lobe around it, grating equation. The
+    fused kernel ops/grating_pallas.grating_sample computes the same dict
+    (wo, pdf, lobe, w_g1_int = G1 * lobe intensity, reflection_dir, mvec,
+    ok) on the GPU."""
+    au, av = alpha[..., 0], alpha[..., 1]
+    cos_i = fr.cos_theta(wi)
+    wi_up = jnp.where((cos_i < 0)[..., None], -wi, wi)
+    mvec, mpdf = mf.sample_vndf(wi_up, u2, au, av, ndf)
+    reflection_dir = fr.reflect_n(wi, mvec)
+
+    # local frame aligned with the microfacet normal
+    ms, mt = mu.coordinate_system(mvec)
+    wi_m = jnp.stack(
+        [fr.dot(wi, ms), fr.dot(wi, mt), fr.dot(wi, mvec)], axis=-1
+    )
+    base = gr.order_intensities(g, wi_m, wl_um, half)  # one sweep
+    lobe, pdf_xy = gr.sample_lobe(g, lobe_u2, wi_m, wl_um, half, base)
+    intensity = gr.lobe_intensity_xy(g, lobe, wi_m, wl_um, half, base)
+    wo_m, diff_ok = gr.diffract(g, wi_m, lobe, wl_um)
+    wo = ms * wo_m[..., 0:1] + mt * wo_m[..., 1:2] + mvec * wo_m[..., 2:3]
+
+    pdf = mpdf * pdf_xy[..., 0] * pdf_xy[..., 1] / jnp.maximum(
+        4.0 * jnp.abs(fr.dot(reflection_dir, mvec)), 1e-12
+    )
+    ok = (cos_i > 0) & (mpdf > 0) & (fr.cos_theta(wo) > 0) & diff_ok
+    # G1 of the *specular* reflection dir (sample_visible weighting)
+    w_g1_int = mf.smith_g1(reflection_dir, mvec, au, av, ndf) * intensity
+    return {"wo": wo, "pdf": pdf, "lobe": lobe, "w_g1_int": w_g1_int,
+            "reflection_dir": reflection_dir, "mvec": mvec, "ok": ok}
+
+
 # ---------------------------------------------------------------------------
 # roughgrating wave path
 # ---------------------------------------------------------------------------
@@ -127,24 +157,21 @@ class RoughGratingW:
         cos_i = fr.cos_theta(si.wi)
         active = cos_i > 0
 
-        au = p["alpha"][..., 0]
-        av = p["alpha"][..., 1]
-
         # hero wavelength for lobe selection (nm -> um)
-        wl_nm = sampling_wl[..., 0]
-        wl_um = wl_nm * 1e-3
+        wl_um = sampling_wl[..., 0] * 1e-3
 
         g = _make_grating(p, si.uv)
         half = int(p.get("_grt_static", (gr.MAX_LOBES // 2, 0))[0])
+        ndf = int(p.get("_ndf", mf.GGX))
 
-        if jax.default_backend() == "tpu" and _PALLAS_LOBE_SUM:
+        if ops.use_fused_kernels():
             # fused sample kernel (ops/grating_pallas.grating_sample): the
-            # VNDF + Bessel + lobe-CDF + diffract chain otherwise compiles
-            # to ~40 small fusions per bounce inside the render scan.
-            # Inputs are DETACHED: the kernel has no AD rule, and detached
-            # sampling is the estimator's semantics anyway (the sampled
-            # path carries no gradient; parameters differentiate through
-            # the attached re-evaluations — wbsdf_eval/weight/Fresnel).
+            # chain below otherwise compiles to many small fusions per
+            # bounce inside the render scan. Inputs are DETACHED: the
+            # kernel has no AD rule, and detached sampling is the
+            # estimator's semantics anyway (the sampled path carries no
+            # gradient; parameters differentiate through the attached
+            # re-evaluations — wbsdf_eval/weight/Fresnel).
             from ..ops.grating_pallas import grating_sample
 
             sg_ = jax.lax.stop_gradient
@@ -152,64 +179,36 @@ class RoughGratingW:
                 sg_(si.wi), u2, lobe_u2, sg_(wl_um), sg_(p["alpha"]),
                 sg_(g.grating_dir), sg_(g.inv_period), sg_(g.q), g.lobes,
                 g.gtype & gr.TYPE_MASK, sg_(g.multiplier), half=half,
-                ndf=int(p.get("_ndf", 0)),
+                ndf=ndf,
             )
-            mvec = out["mvec"]
-            reflection_dir = out["reflection_dir"]
-            lobe = out["lobe"]
-            wo = out["wo"]
-            pdf = out["pdf"]
-            w_g1_int = out["w_g1_int"]
-            ok = active & out["ok"]
         else:
-            wi_up = jnp.where((cos_i < 0)[..., None], -si.wi, si.wi)
-            mvec, mpdf = mf.sample_vndf(wi_up, u2, au, av,
-                                        p.get("_ndf", mf.GGX))
-            reflection_dir = fr.reflect_n(si.wi, mvec)
-
-            # local frame aligned with the microfacet normal
-            ms, mt = mu.coordinate_system(mvec)
-            wi_m = jnp.stack(
-                [fr.dot(si.wi, ms), fr.dot(si.wi, mt), fr.dot(si.wi, mvec)],
-                axis=-1,
-            )
-            base = gr.order_intensities(g, wi_m, wl_um, half)  # one sweep
-            lobe, pdf_xy = gr.sample_lobe(g, lobe_u2, wi_m, wl_um, half, base)
-            intensity = gr.lobe_intensity_xy(g, lobe, wi_m, wl_um, half, base)
-            wo_m, diff_ok = gr.diffract(g, wi_m, lobe, wl_um)
-            wo = ms * wo_m[..., 0:1] + mt * wo_m[..., 1:2] \
-                + mvec * wo_m[..., 2:3]
-
-            grating_pdf = pdf_xy[..., 0] * pdf_xy[..., 1]
-            pdf = mpdf * grating_pdf / jnp.maximum(
-                4.0 * jnp.abs(fr.dot(reflection_dir, mvec)), 1e-12
-            )
-            ok = active & (mpdf > 0) & (fr.cos_theta(wo) > 0) & diff_ok
-            # G1 of the *specular* reflection dir (sample_visible weighting)
-            w_g1_int = mf.smith_g1(
-                reflection_dir, mvec, au, av, p.get("_ndf", mf.GGX)
-            ) * intensity
+            out = grating_sample_xla(si.wi, u2, lobe_u2, wl_um, p["alpha"],
+                                     g, half, ndf)
+        mvec = out["mvec"]
+        reflection_dir = out["reflection_dir"]
+        wo = out["wo"]
+        ok = active & out["ok"]
 
         Fv = bsdfs.RoughConductor._fresnel_value(
             p, si, reflection_dir, mvec, ctx, cfg, sampling_wl
         )
         weight = bsdfs.mul_value(
             Fv,
-            jnp.broadcast_to(w_g1_int[..., None], (n, cfg.n_channels)),
+            jnp.broadcast_to(out["w_g1_int"][..., None], (n, cfg.n_channels)),
             cfg,
         )
         weight = bsdfs.where_value(ok, weight, bsdfs.zeros_value(n, cfg), cfg)
 
         bs = BSDFSample(
             wo=wo,
-            pdf=pdf,
+            pdf=out["pdf"],
             eta=jnp.ones((n,), jnp.float32),
             sampled_type=jnp.full((n,), BSDFFlags.GlossyReflection, jnp.uint32),
             sampled_component=jnp.zeros((n,), jnp.int32),
         )
         sd = PLTSamplePhaseData(
             bs=bs,
-            lobe=lobe,
+            lobe=out["lobe"],
             internal_frame=reflection_dir,
             coherence=Coherence.isotropic(
                 jnp.zeros((n,), jnp.float32), jnp.zeros((n,), jnp.float32)
@@ -223,9 +222,8 @@ class RoughGratingW:
         """Exhaustive lobe sum with angular-coherence Gaussian falloff
         (roughgrating.cpp:676-970), vectorized over lanes x lobes^2 x C.
 
-        TPU restructuring (round 2): the lobe grid is a *static numpy*
-        array so order intensities come from static indexing (no
-        take_along_axis gathers — the measured 10-300x in-loop cost), the
+        The lobe grid is a *static numpy* array so order intensities come
+        from static indexing (no take_along_axis gathers), the
         lobe-center angle is computed from closed-form dot products (no
         [N, L2, C, 3] direction tensor materializes), and when every
         grating in the scene is statically 1D/axis-aligned (grt_static)
@@ -247,11 +245,10 @@ class RoughGratingW:
         half, separable = p.get("_grt_static", (gr.MAX_LOBES // 2, 0))
         half = max(int(half), 0)
 
-        # TPU: one fused Pallas pass over the wavefront (Bessel sweep +
-        # lobe sum in registers; the XLA chain below materializes ~100
-        # [N, C, L] intermediates — measured 27 ms -> ~2 ms per call at a
-        # 1.92M-lane wavefront). Same algebra; asin via minimax polynomial.
-        if jax.default_backend() == "tpu" and _PALLAS_LOBE_SUM:
+        # GPU: one fused Pallas pass over the wavefront (Bessel sweep +
+        # lobe sum in registers); the XLA chain below materializes ~100
+        # [N, C, L] intermediates. Same algebra.
+        if ops.use_fused_kernels():
             per_wl = RoughGratingW._lobe_sum_pallas(
                 p, g, si, wo, wl_nm, half, bool(separable), C
             )
@@ -373,9 +370,9 @@ class RoughGratingW:
         """Common eval tail: spectral/RGB conversion + Fresnel + masking.
 
         rgb_colour: optional precomputed xyz_to_srgb(cie1931_xyz(wl_nm))
-        [N, C, 3] — the CIE interpolation costs ~12 ms/2M lanes and the
-        wavelengths are loop-invariant across the solve scan, so callers
-        hoist it out of the depth loop (integrators/plt.py solve_phase)."""
+        [N, C, 3] — the wavelengths are loop-invariant across the solve
+        scan, so callers hoist the CIE interpolation out of the depth loop
+        (integrators/plt.py solve_phase)."""
         if cfg.spectral:
             result = per_wl
         else:
@@ -385,10 +382,8 @@ class RoughGratingW:
                 spec.xyz_to_srgb(spec.cie1931_xyz(wl_nm))  # [N, C, 3]
                 if rgb_colour is None else rgb_colour
             )
-            # unrolled over the (static) hero axis: the [N, C, 3]
-            # sum(axis=1) reduce runs in the padded minor-3 layout
-            # (~1.3 ms/bounce at 960k lanes); C elementwise FMAs fuse
-            # (an einsum pads to full MXU tiles and also loses)
+            # unrolled over the (static) hero axis: C elementwise FMAs
+            # fuse, where a [N, C, 3] reduce or an einsum would not
             C_h = per_wl.shape[-1]
             result = sum(
                 per_wl[:, k:k + 1] * jnp.maximum(colour[:, k, :], 0.0)

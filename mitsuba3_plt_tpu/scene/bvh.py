@@ -9,8 +9,8 @@ Layout (DFS pre-order):
                          -1 terminates traversal
 
 Skip links make the device loop a single `while node >= 0` with no stack —
-the TPU-native replacement for the reference's stack-based kd-tree/Embree/
-OptiX backends (src/render/scene_embree.inl, kdtree.h).
+the array-program replacement for the reference's stack-based kd-tree/
+Embree/OptiX backends (src/render/scene_embree.inl, kdtree.h).
 
 Leaves are padded to exactly LEAF_SIZE prim slots (padding = -1) so the
 device inner loop is static. A C++ builder for multi-million-triangle scenes
@@ -38,420 +38,6 @@ class BVH:
     node_count: Any  # [NN] i32
     node_miss: Any   # [NN] i32
     prim_idx: Any    # [P] i32 padded triangle indices (-1 = empty slot)
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class PacketBVH:
-    """VMEM-resident packing of a skip-link BVH for the Pallas packet
-    traversal kernel (ops/intersect_pallas.pallas_bvh_intersect).
-
-    Triangles are re-ordered so each leaf's primitives are CONTIGUOUS rows of
-    `tri` — the kernel walks `rows [first, first+count)` with zero index
-    indirection; the original primitive id rides in row slot 9 as f32.
-    Replaces the role of the reference's Embree/kd-tree backends
-    (src/render/scene_embree.inl, include/mitsuba/render/kdtree.h) for
-    mesh-heavy scenes.
-    """
-
-    # [NN_pad, 16] f32 merged node rows: lo.xyz, hi.xyz, first, count,
-    # miss, pad(7) — one scalar row fetch per traversal step
-    nodes: Any
-    tri: Any    # [P_pad, 16] f32: p0, e1, e2, orig_prim_id, pad...
-
-    @property
-    def n_nodes(self):
-        return self.nodes.shape[0]
-
-
-def pack_packet_bvh(bvh: BVH, tri_p0, tri_p1, tri_p2,
-                    leaf_collapse: int = 16) -> PacketBVH:
-    """Flatten a built BVH + triangle soup into the PacketBVH layout.
-
-    `leaf_collapse`: any subtree holding <= this many prims becomes ONE leaf.
-    Packet traversal amortizes a triangle test over the whole ray tile, so
-    wide leaves (vector math) beat deep descents (scalar node reads + per-node
-    slab tests) — the opposite tradeoff from the per-lane XLA walk.
-    """
-    lo = np.asarray(bvh.node_lo, np.float32)
-    hi = np.asarray(bvh.node_hi, np.float32)
-    first = np.asarray(bvh.node_first, np.int32)
-    count = np.asarray(bvh.node_count, np.int32)
-    miss = np.asarray(bvh.node_miss, np.int32)
-    prim = np.asarray(bvh.prim_idx, np.int32)
-    p0 = np.asarray(tri_p0, np.float32)
-    p1 = np.asarray(tri_p1, np.float32)
-    p2 = np.asarray(tri_p2, np.float32)
-
-    nn = lo.shape[0]
-    # DFS pre-order + skip links => subtree(i) = node range [i, end[i])
-    end = np.where(miss >= 0, miss, nn)
-    csum = np.concatenate([[0], np.cumsum(count)]).astype(np.int64)
-    sub_prims = csum[end] - csum[np.arange(nn)]
-
-    make_leaf = (count > 0) | (sub_prims <= leaf_collapse)
-
-    # new-subtree sizes (children sit at i+1 and miss[i+1], both > i)
-    new_size = np.ones(nn, np.int64)
-    for i in range(nn - 1, -1, -1):
-        if not make_leaf[i]:
-            left = i + 1
-            right = miss[left]
-            new_size[i] = 1 + new_size[left] + new_size[right]
-
-    n_new = int(new_size[0])
-    o_lo = np.zeros((n_new, 3), np.float32)
-    o_hi = np.zeros((n_new, 3), np.float32)
-    o_first = np.zeros(n_new, np.int32)
-    o_count = np.zeros(n_new, np.int32)
-    o_miss = np.full(n_new, -1, np.int32)
-    ids_list = []
-    n_rows = 0
-
-    counter = 0
-    stack = [(0, -1)]
-    while stack:
-        i, m = stack.pop()
-        ni = counter
-        counter += 1
-        o_lo[ni] = lo[i]
-        o_hi[ni] = hi[i]
-        o_miss[ni] = m
-        if make_leaf[i]:
-            # every prim in subtree [i, end[i]), in leaf DFS order
-            seg = np.arange(i, end[i])
-            seg = seg[count[seg] > 0]
-            ids = np.concatenate(
-                [prim[first[j]: first[j] + count[j]] for j in seg]
-            ) if len(seg) else np.zeros(0, np.int32)
-            o_first[ni] = n_rows
-            o_count[ni] = len(ids)
-            ids_list.append(ids)
-            n_rows += len(ids)
-        else:
-            left = i + 1
-            right = miss[left]
-            o_first[ni] = ni + 1
-            stack.append((right, m))
-            stack.append((left, ni + 1 + int(new_size[left])))
-
-    ids = (np.concatenate(ids_list) if n_rows else np.zeros(0, np.int32))
-    if n_rows:
-        rows = np.concatenate(
-            [
-                p0[ids], p1[ids] - p0[ids], p2[ids] - p0[ids],
-                ids[:, None].astype(np.float32),
-                np.zeros((n_rows, 6), np.float32),
-            ],
-            axis=-1,
-        )
-    else:
-        rows = np.zeros((0, 16), np.float32)
-
-    p_pad = (-n_rows) % 8
-    p_rows = np.concatenate(
-        [rows, np.zeros((p_pad, 16), np.float32)], axis=0
-    )
-
-    nn_pad = (-n_new) % 8
-    # ONE merged node row [lo(3), hi(3), first, count, miss, pad(7)]: the
-    # traversal loop is latency-bound on serial scalar row fetches — one
-    # 16-wide row per node instead of separate box[8]+link[4] fetches.
-    # first/count/miss are exact in f32 (all < 2^24).
-    nodes = np.concatenate(
-        [
-            o_lo, o_hi,
-            o_first[:, None].astype(np.float32),
-            o_count[:, None].astype(np.float32),
-            o_miss[:, None].astype(np.float32),
-            np.zeros((n_new, 7), np.float32),
-        ],
-        axis=-1,
-    )
-    nodes = np.concatenate(
-        [nodes, np.zeros((nn_pad, 16), np.float32)], axis=0
-    )
-    # padding rows: miss = -1 (terminate) — they are never reached anyway
-    if nn_pad:
-        nodes[n_new:, 8] = -1.0
-
-    return PacketBVH(nodes=jnp.asarray(nodes), tri=jnp.asarray(p_rows))
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class ClusterTable:
-    """Treelet-clustered triangle soup for the cluster-gated brute-force
-    kernel (ops/intersect_pallas.pallas_intersect_clu) — the mid-size-scene
-    accelerator between pure brute force and the packet BVH.
-
-    The SAH tree is cut into treelets of <= max_leaf triangles; a ray tile
-    tests each treelet's AABB with pure vector ops (sequential scan — no
-    traversal divergence, no gathers) and skips the treelet's whole triangle
-    loop when no lane hits the box. Replaces the role of the reference's
-    two-level Embree scene (src/render/scene_embree.inl) for scenes where a
-    full per-tile tree walk doesn't pay.
-
-    boxes [NC_pad, 16] f32: lo(3) hi(3) first_row trips pad(8) — AABBs
-      relative to the q-table anchor; trips = padded triangle rows / unroll.
-    rows  [R_pad, 32] f32: the pack_tri_q quantities (e1 e2 m1 m2 n2 k) + the
-      ORIGINAL primitive id at column 16 (clusters reorder triangles, so the
-      id rides in the row — VMEM rows pad to the lane width anyway, the wide
-      layout costs nothing).
-    """
-
-    boxes: Any
-    rows: Any
-    anchor: Any
-
-    @property
-    def n_clusters(self):
-        return self.boxes.shape[0]
-
-
-CLU_UNROLL = 8  # triangle rows per inner-loop trip (cluster counts pad to it)
-
-
-def pack_clusters(bvh: BVH, tri_p0, tri_p1, tri_p2, max_leaf: int = 64):
-    """Cut the skip-link BVH into treelets and pack the cluster tables.
-
-    Treelets inherit the SAH tree's spatial quality: a pre-order walk emits a
-    cluster at the first node whose subtree holds <= max_leaf prims, then
-    jumps its skip link (so clusters tile the leaves disjointly, in DFS
-    order — consecutive clusters are spatially adjacent, which is what makes
-    the sequential AABB scan prune well for coherent ray tiles)."""
-    lo = np.asarray(bvh.node_lo, np.float32)
-    hi = np.asarray(bvh.node_hi, np.float32)
-    first = np.asarray(bvh.node_first, np.int32)
-    count = np.asarray(bvh.node_count, np.int32)
-    miss = np.asarray(bvh.node_miss, np.int32)
-    prim = np.asarray(bvh.prim_idx, np.int32)
-    p0 = np.asarray(tri_p0, np.float32)
-    p1 = np.asarray(tri_p1, np.float32)
-    p2 = np.asarray(tri_p2, np.float32)
-
-    nn = lo.shape[0]
-    end = np.where(miss >= 0, miss, nn)
-    csum = np.concatenate([[0], np.cumsum(count)]).astype(np.int64)
-    sub_prims = csum[end] - csum[np.arange(nn)]
-
-    clusters = []  # (node, ids)
-    i = 0
-    while i < nn:
-        if count[i] > 0 or sub_prims[i] <= max_leaf:
-            seg = np.arange(i, end[i])
-            seg = seg[count[seg] > 0]
-            ids = (
-                np.concatenate(
-                    [prim[first[j]: first[j] + count[j]] for j in seg]
-                )
-                if len(seg)
-                else np.zeros(0, np.int32)
-            )
-            ids = ids[ids >= 0]
-            if len(ids):
-                clusters.append((i, ids))
-            i = end[i]
-        else:
-            i += 1
-
-    from ..ops.intersect_pallas import pack_tri_q
-
-    # one shared anchor (the root AABB centre) for conditioning — must match
-    # what the wrapper subtracts from ray origins
-    anchor = (lo[0] + hi[0]) * 0.5
-    boxes = []
-    row_parts = []
-    n_rows = 0
-    for ni, ids in clusters:
-        q, _ = pack_tri_q(p0[ids], p1[ids], p2[ids], anchor=anchor)
-        # pack_tri_q pads to 64; re-trim to the cluster's own unroll padding
-        t_pad = -(-len(ids) // CLU_UNROLL) * CLU_UNROLL
-        q = q[:t_pad]
-        rows = np.zeros((t_pad, 32), np.float32)
-        rows[:, :16] = q
-        rows[: len(ids), 16] = ids.astype(np.float32)
-        rows[len(ids):, 16] = -1.0
-        boxes.append(
-            np.concatenate(
-                [
-                    lo[ni] - anchor, hi[ni] - anchor,
-                    [np.float32(n_rows), np.float32(t_pad // CLU_UNROLL)],
-                    np.zeros(8, np.float32),
-                ]
-            )
-        )
-        row_parts.append(rows)
-        n_rows += t_pad
-
-    if not boxes:
-        return None
-    # VMEM residency bound: rows pad the 32-wide lane dim to 128, so the
-    # whole table costs n_rows * 128 * 4 B. A lopsided SAH cut near
-    # CLUSTER_MAX_FACES can inflate padded rows past the 64 MB scoped
-    # budget and fail at Mosaic allocation time — bail to the packet-BVH /
-    # brute routes instead (scene.py handles ctab=None).
-    if n_rows * 128 * 4 > 48 * 2**20:
-        return None
-    boxes = np.stack(boxes).astype(np.float32)
-    nc_pad = (-len(boxes)) % 8
-    if nc_pad:
-        padbox = np.zeros((nc_pad, 16), np.float32)
-        padbox[:, 0:3] = 1e30   # lo > hi -> slab test never passes
-        padbox[:, 3:6] = -1e30
-        boxes = np.concatenate([boxes, padbox], axis=0)
-    rows = np.concatenate(row_parts, axis=0)
-    r_pad = (-rows.shape[0]) % 8
-    if r_pad:
-        rows = np.concatenate(
-            [rows, np.zeros((r_pad, 32), np.float32)], axis=0
-        )
-        rows[-r_pad:, 16] = -1.0
-    return ClusterTable(
-        boxes=jnp.asarray(boxes), rows=jnp.asarray(rows),
-        anchor=jnp.asarray(anchor.astype(np.float32)),
-    )
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class ClusterTable2:
-    """TWO-LEVEL treelet tables for the clu2 kernel
-    (ops/intersect_pallas.pallas_intersect_clu2) — the round-4 big-mesh
-    accelerator. Two changes over ClusterTable:
-
-    1. A SUPER level: consecutive DFS treelets grouped under one AABB, so a
-       ray tile slab-tests ~K/16 super boxes and descends only into supers
-       some lane enters — the flat scan's O(K) per-tile AABB cost was the
-       floor on 82k-face scenes (~1300 sequential box tests/tile).
-    2. PACKED triangle rows: 4 triangles per 128-lane VMEM row (the [R, 32]
-       layout wasted 3/4 of every row on lane padding) — T faces cost
-       T * 128 B instead of T * 512 B, raising the VMEM-resident ceiling
-       4x for the same scoped budget.
-
-    supers [S_pad, 16]: lo(3) hi(3) first_cluster n_clusters
-    boxes  [K_pad, 16]: lo(3) hi(3) first_row n_rows
-    rows   [R, 128]: 4 triangles x 32 cols; per triangle j at 32j..32j+17:
-      e1(3) e2(3) m1(3) m2(3) n2(3) k(1) prim(1) (pack_tri_q quantities;
-      padding triangles have n2 = 0 -> det = 0 -> never hit, prim = -1).
-    """
-
-    supers: Any
-    boxes: Any
-    rows: Any
-    anchor: Any
-
-
-CLU2_SUPER = 16  # DFS-consecutive clusters per super box
-
-
-def pack_clusters2(bvh: BVH, tri_p0, tri_p1, tri_p2, max_leaf: int = 64,
-                   vmem_budget_bytes: int = 40 * 2**20):
-    """Two-level treelet tables (see ClusterTable2). Returns None when the
-    packed rows would exceed the scoped-VMEM budget."""
-    lo = np.asarray(bvh.node_lo, np.float32)
-    hi = np.asarray(bvh.node_hi, np.float32)
-    first = np.asarray(bvh.node_first, np.int32)
-    count = np.asarray(bvh.node_count, np.int32)
-    miss = np.asarray(bvh.node_miss, np.int32)
-    prim = np.asarray(bvh.prim_idx, np.int32)
-    p0 = np.asarray(tri_p0, np.float32)
-    p1 = np.asarray(tri_p1, np.float32)
-    p2 = np.asarray(tri_p2, np.float32)
-
-    nn = lo.shape[0]
-    end = np.where(miss >= 0, miss, nn)
-    csum = np.concatenate([[0], np.cumsum(count)]).astype(np.int64)
-    sub_prims = csum[end] - csum[np.arange(nn)]
-
-    clusters = []  # (node, ids) in DFS order
-    i = 0
-    while i < nn:
-        if count[i] > 0 or sub_prims[i] <= max_leaf:
-            seg = np.arange(i, end[i])
-            seg = seg[count[seg] > 0]
-            ids = (
-                np.concatenate(
-                    [prim[first[j]: first[j] + count[j]] for j in seg]
-                )
-                if len(seg)
-                else np.zeros(0, np.int32)
-            )
-            ids = ids[ids >= 0]
-            if len(ids):
-                clusters.append((i, ids))
-            i = end[i]
-        else:
-            i += 1
-    if not clusters:
-        return None
-
-    from ..ops.intersect_pallas import pack_tri_q
-
-    anchor = (lo[0] + hi[0]) * 0.5
-
-    boxes = []
-    row_parts = []
-    n_rows = 0
-    for ni, ids in clusters:
-        q, _ = pack_tri_q(p0[ids], p1[ids], p2[ids], anchor=anchor)
-        q = q[: len(ids)]
-        nr = -(-len(ids) // 4)
-        rows = np.zeros((nr, 128), np.float32)
-        for j in range(4):
-            sel = q[j::4]
-            rows[: len(sel), 32 * j: 32 * j + 16] = sel
-            pr = ids[j::4].astype(np.float32)
-            rows[: len(pr), 32 * j + 16] = pr
-            rows[len(pr):, 32 * j + 16] = -1.0
-            if len(sel) < nr:
-                rows[len(sel):, 32 * j + 16] = -1.0
-        boxes.append(np.concatenate([
-            lo[ni] - anchor, hi[ni] - anchor,
-            [np.float32(n_rows), np.float32(nr)],
-            np.zeros(8, np.float32),
-        ]))
-        row_parts.append(rows)
-        n_rows += nr
-
-    if n_rows * 128 * 4 > vmem_budget_bytes:
-        return None
-    boxes = np.stack(boxes).astype(np.float32)
-    K = len(boxes)
-
-    # super level: chunks of CLU2_SUPER consecutive DFS clusters
-    supers = []
-    for s0 in range(0, K, CLU2_SUPER):
-        seg = boxes[s0: s0 + CLU2_SUPER]
-        supers.append(np.concatenate([
-            seg[:, 0:3].min(0), seg[:, 3:6].max(0),
-            [np.float32(s0), np.float32(len(seg))],
-            np.zeros(8, np.float32),
-        ]))
-    supers = np.stack(supers).astype(np.float32)
-
-    def pad8(a):
-        p = (-len(a)) % 8
-        if p:
-            pad = np.zeros((p, a.shape[1]), np.float32)
-            pad[:, 0:3] = 1e30   # lo > hi -> never hit
-            pad[:, 3:6] = -1e30
-            a = np.concatenate([a, pad], axis=0)
-        return a
-
-    rows = np.concatenate(row_parts, axis=0)
-    r_pad = (-rows.shape[0]) % 8
-    if r_pad:
-        pad = np.zeros((r_pad, 128), np.float32)
-        for j in range(4):
-            pad[:, 32 * j + 16] = -1.0
-        rows = np.concatenate([rows, pad], axis=0)
-    return ClusterTable2(
-        supers=jnp.asarray(pad8(supers)),
-        boxes=jnp.asarray(pad8(boxes)),
-        rows=jnp.asarray(rows),
-        anchor=jnp.asarray(anchor.astype(np.float32)),
-    )
 
 
 def build_bvh(vertices: np.ndarray, faces: np.ndarray) -> BVH:

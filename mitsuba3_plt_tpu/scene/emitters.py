@@ -579,7 +579,7 @@ def _sample_area(em, geo, ref_p, e_idx, sample2, ep=None):
         ep = em.gather(e_idx)
     n = ref_p.shape[0]
     # triangle pick by per-emitter area CDF; row fetches via one-hot matmul
-    # (in-scan random gathers are the TPU bottleneck — see core.math.small_gather)
+    # (see core.math.small_gather)
     cdf_rows = m.small_gather(em.tri_cdf, e_idx)  # [N, T]
     idx_rows = m.small_gather(em.tri_idx.astype(jnp.float32), e_idx)  # [N, T]
     u = sample2[..., 0]

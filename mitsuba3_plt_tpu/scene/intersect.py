@@ -1,8 +1,8 @@
 """Device-side ray intersection: Möller–Trumbore triangles + stackless
 skip-link BVH traversal (lax.while_loop), plus a brute-force oracle.
 
-This is the pure-JAX correctness path (SURVEY §7 stage 3); the Pallas
-flattened-stack kernel in ops/ supersedes it for performance once validated.
+Plain JAX, compiled by XLA for every backend; Scene.intersect_route picks
+the chunked brute force or the BVH walk per scene.
 """
 from __future__ import annotations
 
@@ -170,12 +170,9 @@ def chunked_intersect(tri_packed, o, d, t_max, chunk: int = 64):
     tri_packed: [T_pad, 9] rows (p0, e1, e2), T_pad a multiple of `chunk`,
     padding rows degenerate (e1 = e2 = 0 -> det 0 -> never hit).
 
-    TPU-native rationale: `lax.scan` feeds each chunk as a sliced `xs`
-    argument — contiguous dynamic-slices, NO gathers in the loop body. On the
-    target hardware an in-loop random gather costs ~2 ms per step for a 256k
-    wavefront while this body is pure VPU math (~100x faster); below a few
-    thousand triangles this beats per-lane BVH walking outright and is the
-    default small-scene path (Scene.ray_intersect).
+    `lax.scan` feeds each chunk as a sliced `xs` argument: contiguous
+    dynamic slices and no gathers in the loop body, which is pure
+    elementwise math. It is the small-scene path of Scene.ray_intersect.
     """
     n = o.shape[0]
     t_pad = tri_packed.shape[0]

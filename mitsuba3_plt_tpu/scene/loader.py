@@ -556,7 +556,7 @@ def _build_scene_from_xml(root, defaults, base_dir):
     disks = []
     cylinders = []
     # shapegroup definitions: id -> list of (HostMesh local-space, mat_idx)
-    # (reference src/shapes/{shapegroup,instance}.cpp; the TPU-native choice
+    # (reference src/shapes/{shapegroup,instance}.cpp; the array-program choice
     # is FLATTENING — each instance bakes a transformed copy into the soup,
     # trading memory for a single-level gather-free BVH instead of the
     # reference's two-level acceleration)
@@ -859,23 +859,6 @@ def assemble_scene(meshes, mesh_mat, mesh_emitter, bsdf_list, emitters, sensor,
     mat_table = build_material_table(bsdf_list)
     em_table, env_idx = build_emitter_table(emitters, meshes, geo)
 
-    # two-level treelet tables (clu2): coherent camera tiles on any size
-    # above the cluster floor, and the primary big-mesh route; returns None
-    # past its VMEM budget (~300k faces)
-    ctab2 = None
-    if geo.n_faces > Scene.CLUSTER_MIN_FACES:
-        from .bvh import pack_clusters2
-
-        ctab2 = pack_clusters2(bvh, geo.tri_p0, geo.tri_p1, geo.tri_p2)
-    pbvh = None
-    # packet BVH: fallback for big meshes when clu2's VMEM budget is
-    # exceeded (its tri table is 4x smaller per face than the old layout,
-    # but the skip-link walk still covers the largest scenes)
-    if ctab2 is None and 1024 < geo.n_faces <= Scene.PACKET_BVH_MAX_FACES:
-        from .bvh import pack_packet_bvh
-
-        pbvh = pack_packet_bvh(bvh, geo.tri_p0, geo.tri_p1, geo.tri_p2)
-    ctab = None
     sdf_tuple = ()
     if sdf_shapes:
         from .sdf import SDFGrid
@@ -889,8 +872,7 @@ def assemble_scene(meshes, mesh_mat, mesh_emitter, bsdf_list, emitters, sensor,
         )
     scene = Scene(
         geo=geo, bvh=bvh, materials=mat_table, emitters=em_table,
-        sensor=sensor, env_emitter=env_idx, pbvh=pbvh, ctab=ctab,
-        ctab2=ctab2, sdfs=sdf_tuple,
+        sensor=sensor, env_emitter=env_idx, sdfs=sdf_tuple,
     )
     meta = {"integrator": integrator_cfg, "spp": spp, "rfilter": rfilter,
             "sampler": sampler}

@@ -4,7 +4,7 @@ functions.
 Functional twin of the reference's media/phase/volume layer (src/media/
 {homogeneous,heterogeneous}.cpp, src/volumes/grid.cpp, src/phase/
 {hg,isotropic,rayleigh}.cpp): ONE global medium filling the scene.
-Heterogeneous transport is TPU-native null-collision tracking: distance
+Heterogeneous transport is null-collision tracking: distance
 sampling by delta tracking and transmittance by ratio tracking, both as
 fixed-trip-count lax.scan sweeps with active masks (no data-dependent
 loop bounds under jit).

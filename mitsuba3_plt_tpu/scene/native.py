@@ -1,6 +1,7 @@
 """ctypes bindings for the native scene-preparation runtime (native/).
 
-Builds native/libmpt_native.so on first use (g++, ~1 s) and exposes
+Builds native/libmpt_native.so from the committed sources on first use, and
+again whenever a source is newer (g++, ~1 s), and exposes
 `build_bvh_native`. Falls back to the numpy builder (bvh.py) when no
 toolchain is available — call sites use `try_build_bvh`.
 """
@@ -14,6 +15,7 @@ import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
 _SO = os.path.join(_NATIVE_DIR, "libmpt_native.so")
+_SOURCES = ("bvh_builder.cpp", "exr_piz.cpp", "Makefile")
 _lib = None
 _lib_failed = False
 
@@ -25,9 +27,9 @@ def _load():
     if _lib is not None or _lib_failed:
         return _lib
     try:
-        if not os.path.exists(_SO) or (
-            os.path.getmtime(_SO)
-            < os.path.getmtime(os.path.join(_NATIVE_DIR, "bvh_builder.cpp"))
+        if not os.path.exists(_SO) or os.path.getmtime(_SO) < max(
+            os.path.getmtime(os.path.join(_NATIVE_DIR, src))
+            for src in _SOURCES
         ):
             subprocess.run(
                 ["make", "-s", "-C", _NATIVE_DIR], check=True,

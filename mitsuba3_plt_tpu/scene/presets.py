@@ -9,6 +9,8 @@ gratings.xml experiment scene).
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from ..core import transform as tf
@@ -22,6 +24,13 @@ from ..librender.bsdf import (
     BSDF_DIELECTRIC,
     BSDF_ROUGH_GRATING,
 )
+
+
+# XML stand-in for Mitsuba 3's cbox.xml (see the file's header), loaded
+# through mi.load_file like any scene file.
+CBOX_STANDIN_XML = os.path.abspath(os.path.join(
+    os.path.dirname(__file__), "..", "..", "scenes", "cbox_standin", "cbox.xml"
+))
 
 
 def _rect(to_world: np.ndarray) -> HostMesh:

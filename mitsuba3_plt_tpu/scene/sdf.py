@@ -1,7 +1,7 @@
 """SDF-grid shape (reference src/shapes/sdfgrid.cpp): a signed-distance
 grid spanning the unit cube in local space, transformed by to_world.
 
-TPU-native intersection: fixed-trip-count sphere tracing (lax.fori_loop,
+Intersection: fixed-trip-count sphere tracing (lax.fori_loop,
 no data-dependent bounds under jit) followed by bisection refinement —
 the reference's per-voxel trilinear root solve is replaced by a bounded
 march with the same trilinear field, which XLA compiles to one fused

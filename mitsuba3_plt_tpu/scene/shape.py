@@ -3,7 +3,7 @@ and flattening into the SoA triangle soup consumed by the device.
 
 All shapes become triangles (reference keeps analytic sphere/disk prims,
 src/shapes/*; we tessellate — wavefront-uniform triangle intersection is the
-TPU-friendly choice. Analytic quadrics can be added as a second prim stream
+vectorization-friendly choice. Analytic quadrics can be added as a second prim stream
 later if golden-image parity demands it).
 """
 from __future__ import annotations
@@ -512,7 +512,7 @@ def _bspline_eval(cp, t):
 def tessellate_curve(cp, bspline=True, seg_per_span=8, n_phi=8):
     """Sweep a circular cross-section along one curve -> HostMesh tube.
 
-    TPU-native stance: the reference ray-traces curve primitives
+    Stance: the reference ray-traces curve primitives
     analytically on the GPU (bsplinecurve.cpp / linearcurve.cpp +
     optix); here curves tessellate at load time into the same flat
     triangle soup every other shape uses — one BVH, no per-type

@@ -4,7 +4,7 @@
 //
 // Role parity: the reference's accel backends build on native code too
 // (embree BVH / kd-tree, src/render/scene_embree.inl, kdtree.h); here the
-// host-side build is the native piece while traversal runs on-TPU. The
+// host-side build is the native piece while traversal runs on the device. The
 // numpy builder in bvh.py stays as a fallback; this one handles
 // multi-million-triangle scenes at interactive build times.
 //

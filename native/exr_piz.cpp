@@ -4,7 +4,7 @@
 // Role parity: the reference reads/writes EXR through OpenEXR
 // (src/core/bitmap.cpp); all of its shipped renders (results/*.exr) and
 // scene assets (scenes/*/*.exr) are PIZ-compressed HALF scanline images.
-// This decoder lets the TPU rebuild load those assets (envmaps) and
+// This decoder lets the renderer load those assets (envmaps) and
 // validate against the reference's actual renders without OpenEXR.
 //
 // Exposed C ABI (ctypes, see mitsuba3_plt_tpu/utils/exr.py):

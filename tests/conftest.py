@@ -1,8 +1,8 @@
 """Test configuration: run everything on a virtual 8-device CPU mesh so that
-sharding tests work without TPU hardware and tests are hermetic."""
+sharding tests work without accelerator hardware and tests are hermetic."""
 import os
 
-# Force CPU even when the environment pre-registers a TPU backend
+# Force CPU even when the environment pre-registers an accelerator backend
 # (JAX_PLATFORMS may already be set by the host; override, don't default).
 os.environ["JAX_PLATFORMS"] = "cpu"
 flags = os.environ.get("XLA_FLAGS", "")

@@ -3,8 +3,8 @@ scheme, SURVEY §4): small fixed-seed renders compared against stored
 references with a per-pixel z-test at Sidak-corrected significance.
 
 References live in tests/golden/*.npz (mean + variance over spp). Regenerate
-after INTENDED changes with:
-    JAX_PLATFORMS=cpu python tests/test_golden.py
+after INTENDED changes with (all configs, or the ones named):
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_golden.py [name ...]
 """
 import os
 
@@ -23,9 +23,9 @@ def _configs():
 
     def _cbox_xml():
         import mitsuba3_plt_tpu as mi
+        from mitsuba3_plt_tpu.scene.presets import CBOX_STANDIN_XML
 
-        return mi.load_file("/root/reference/scenes/cbox/cbox.xml",
-                            resx=48, resy=48)[0]
+        return mi.load_file(CBOX_STANDIN_XML, resx=48, resy=48)[0]
 
     def _mesh20k():
         import mitsuba3_plt_tpu as mi
@@ -52,15 +52,15 @@ def _configs():
             integ=lambda: PathIntegrator(max_depth=4, rr_depth=9),
             spp=64, ch=3,
         ),
-        # the REFERENCE's actual cbox.xml (2892 faces, dielectric glass +
-        # conductor + twosided diffuse through the XML loader): covers the
-        # mid-size cond(clu2,q) routing regime and the full material stack
+        # the in-repo cbox.xml stand-in (2572 faces, dielectric glass +
+        # conductor + diffuse through the XML loader): the brute-force
+        # routing regime at a realistic face count, gaussian rfilter
         "cbox_xml": dict(
             scene=_cbox_xml,
             integ=lambda: PathIntegrator(max_depth=4, rr_depth=9),
             spp=32, ch=3,
         ),
-        # 20k-face mesh: the big-mesh clu2/XLA-walk regime
+        # 20k-face mesh: the big-mesh BVH-walk regime
         "mesh20k_path": dict(
             scene=_mesh20k,
             integ=lambda: PathIntegrator(max_depth=3, rr_depth=9),
@@ -104,24 +104,28 @@ def test_golden(name):
     path = os.path.join(GOLDEN_DIR, f"{name}.npz")
     if not os.path.exists(path):
         pytest.skip(f"golden reference missing: run tests/test_golden.py")
-    ref = np.load(path)
     mean, var = _render_mean_var(_configs()[name])
-    ref_mean, ref_var = ref["mean"], ref["var"]
+    n_fail, n_pix, z_max, thresh = z_test(name, mean, var)
+    assert n_fail == 0, (
+        f"{name}: {n_fail}/{n_pix} pixels fail the z-test "
+        f"(max z = {z_max:.1f}, thresh = {thresh:.1f})"
+    )
 
-    # z-test per pixel: difference of two noisy estimates
-    sigma = np.sqrt((var + ref_var) / 4 + 1e-8)  # 4 runs each
+
+def z_test(name, mean, var):
+    """Per-pixel z-test of a 4-run render (mean, var) against the stored
+    golden: returns (n_fail, n_pix, max z, Sidak threshold at alpha 0.01)."""
+    ref = np.load(os.path.join(GOLDEN_DIR, f"{name}.npz"))
+    ref_mean, ref_var = ref["mean"], ref["var"]
+    # difference of two noisy estimates, 4 runs each
+    sigma = np.sqrt((var + ref_var) / 4 + 1e-8)
     z = np.abs(mean - ref_mean) / sigma
     n_pix = z.size
-    # Sidak-corrected threshold at alpha = 0.01
     alpha = 1.0 - (1.0 - 0.01) ** (1.0 / n_pix)
     from scipy.stats import norm
 
     thresh = norm.isf(alpha / 2)
-    n_fail = int((z > thresh).sum())
-    assert n_fail == 0, (
-        f"{name}: {n_fail}/{n_pix} pixels fail the z-test "
-        f"(max z = {z.max():.1f}, thresh = {thresh:.1f})"
-    )
+    return int((z > thresh).sum()), n_pix, float(z.max()), float(thresh)
 
 
 if __name__ == "__main__":
@@ -129,8 +133,12 @@ if __name__ == "__main__":
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    import sys
+
     os.makedirs(GOLDEN_DIR, exist_ok=True)
-    for name, entry in _configs().items():
+    names = sys.argv[1:] or list(_configs())
+    for name in names:
+        entry = _configs()[name]
         mean, var = _render_mean_var(entry)
         np.savez_compressed(
             os.path.join(GOLDEN_DIR, f"{name}.npz"), mean=mean, var=var
@@ -139,40 +147,21 @@ if __name__ == "__main__":
 
 
 def test_intersect_routing_tripwire():
-    """Assert which intersection kernel each bench-scene class selects on
-    TPU (round-3 VERDICT: a routing regression was invisible to CI — the
-    cluster kernel silently served incoherent bounce rays at 2-6x the q
-    kernel's cost). intersect_route IS the dispatch (ray_intersect and
-    ray_test both call it), so these assertions pin production routing."""
+    """Pin which intersector each scene class selects. intersect_route IS
+    the dispatch (ray_intersect and ray_test both call it), so these
+    assertions pin production routing."""
     import mitsuba3_plt_tpu as mi
-    from mitsuba3_plt_tpu.scene.presets import cornell_box
+    from mitsuba3_plt_tpu.scene.presets import CBOX_STANDIN_XML, cornell_box
 
-    # tiny preset (36 tris, no ctab2): always q brute
+    # tiny preset (36 tris) and the cbox stand-in (2572 tris): brute force
     tiny = cornell_box(16, 16)[0]
-    assert tiny.ctab2 is None
-    assert tiny.intersect_route(coherent=False, on_tpu=True) == "brute"
-    assert tiny.intersect_route(coherent=True, on_tpu=True) == "brute"
+    assert tiny.intersect_route() == "brute"
+    cbox = mi.load_file(CBOX_STANDIN_XML, resx=32, resy=32)[0]
+    assert cbox.geo.n_faces == 2572
+    assert cbox.intersect_route() == "brute"
+    assert cbox.intersect_route(brute_force=True) == "brute"
 
-    # cbox.xml (2892 faces): clu2 for coherent camera tiles, q for
-    # incoherent bounce rays, lax.cond for the traced scan predicate
-    cbox = mi.load_file("/root/reference/scenes/cbox/cbox.xml",
-                        resx=32, resy=32)[0]
-    assert cbox.ctab2 is not None
-    assert cbox.intersect_route(coherent=True, on_tpu=True) == "clu2"
-    assert cbox.intersect_route(coherent=False, on_tpu=True) == "brute"
-    assert cbox.intersect_route(coherent="pred",
-                                on_tpu=True) == "cond(clu2,q)"
-    assert cbox.intersect_route(brute_force=True, on_tpu=True) == "brute"
-    # ANY-HIT routing matches closest-hit: the round-5 sorted-clu2 any-hit
-    # experiment won its microbenchmark but regressed the full render
-    # (see intersect_route docstring) — pin that it stays OFF
-    assert cbox.intersect_route(coherent=False, on_tpu=True,
-                                anyhit=True) == "brute"
-    assert cbox.intersect_route(coherent="pred", on_tpu=True,
-                                anyhit=True) == "cond(clu2,q)"
-
-    # big mesh (> brute cap): clu2 for every ray class on TPU; the CPU
-    # fallback is the XLA skip-link walk
+    # big mesh (> brute cap): the XLA skip-link BVH walk, unless forced
     from mitsuba3_plt_tpu.core import transform as tf
     from mitsuba3_plt_tpu.scene import shape as shp
 
@@ -186,14 +175,13 @@ def test_intersect_routing_tripwire():
         "ball": {"type": "mesh", "mesh": shp.make_sphere(subdiv=5),
                  "bsdf": {"type": "diffuse", "reflectance": 0.5}},
     })[0]
-    assert big.ctab2 is not None
-    assert big.intersect_route(coherent=False, on_tpu=True) == "clu2"
-    assert big.intersect_route(coherent=True, on_tpu=True) == "clu2"
-    assert big.intersect_route(coherent=False, on_tpu=False) == "xla-walk"
+    assert big.geo.n_faces > big.BRUTE_FORCE_MAX_FACES
+    assert big.intersect_route() == "xla-walk"
+    assert big.intersect_route(brute_force=True) == "brute"
 
 
 def test_filtered_splat_paths_agree():
-    """put_ordered_filtered (segment-sum, the TPU split-jit path) must
+    """put_ordered_filtered (the segment-sum splat of the render loop) must
     match the scatter splat `put` to float precision."""
     import numpy as np
     import jax.numpy as jnp

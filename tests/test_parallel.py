@@ -74,13 +74,11 @@ def test_plt_sharded_matches_single_device():
     single-device render bit-close (lane-indexed RNG contract; the fused
     path is the flagship multi-chip workload)."""
     from mitsuba3_plt_tpu.integrators.plt import PLTIntegrator
-    import mitsuba3_plt_tpu as mi
+    from mitsuba3_plt_tpu.scene.presets import grating_scene
 
     W = H = 16
     spp = 4
-    scene, _ = mi.load_file(
-        "/root/reference/scenes/gratings/gratings.xml", resx=W, resy=H
-    )
+    scene, _ = grating_scene(W, H)
     integ = PLTIntegrator(max_depth=3, rr_depth=8)
 
     img_single = np.asarray(

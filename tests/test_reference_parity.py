@@ -5,7 +5,7 @@ codec), with hard per-scene thresholds.
 Scheme: the reference's golden z-test suite renders every test scene and
 compares per-pixel statistics against stored references
 (src/render/tests/test_renders.py:159-232). Full-size parity lives in
-tools/parity_report.py (TPU, docs/PARITY.md); this CI gate renders at
+tools/parity_report.py (accelerator, docs/PARITY.md); this CI gate renders at
 reduced resolution and compares BOX-downsampled images — downsampling
 averages out MC noise (a 64^2 render box-reduced to 16^2 carries ~16x the
 effective spp), so the thresholds bound BIAS, not noise.

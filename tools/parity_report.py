@@ -9,7 +9,7 @@ a tonemapped 8-bit mean|diff| so residual MC noise in our render reads
 directly (the references are converged: 4096-8192 spp).
 
 Usage: PYTHONPATH=. python tools/parity_report.py [--spp 512] [--out docs/PARITY.md]
-Runs on whatever backend JAX picks (TPU when available).
+Runs on whatever backend JAX picks (the GPU when available).
 """
 from __future__ import annotations
 

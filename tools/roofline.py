@@ -1,22 +1,17 @@
 #!/usr/bin/env python
-"""Roofline / MFU analysis of the render passes (VERDICT round-1 Weak #9:
-"is it actually fast, or just faster than an unknown GPU?").
+"""Roofline analysis of the render passes on an NVIDIA GPU.
 
-Methodology: lower + compile the exact benchmark pass (bench.py's jitted
-callables), pull XLA's own cost analysis (flops + bytes accessed), time the
-steady-state pass, and place the kernel on the chip's roofline:
+Methodology: lower + compile the benchmark pass, pull XLA's own cost
+analysis (flops + bytes accessed), time the steady-state pass, and place it
+on the card's roofline:
 
     achieved_flops  = xla_flops / pass_time
     achieved_bw     = xla_bytes / pass_time
     bound           = whichever fraction of peak is higher
 
-Peaks used (TPU v5e / v5litepod single chip, public numbers):
-    bf16 matmul peak : 197 TFLOP/s   (MXU — ray tracing barely touches it)
-    f32 vector peak  : ~ 3.7 TFLOP/s (VPU, 8 lanes x 128 x ~ 940 MHz x 2 ops
-                                      x 2 issue — approximate)
-    HBM bandwidth    : 819 GB/s
-
-Writes docs/ROOFLINE.md. Run on the TPU (falls back to CPU with a note).
+Peaks come from PEAKS, keyed by JAX's device_kind; any other device is an
+error, not a default. Prints a markdown table. Run on the GPU:
+    python tools/roofline.py
 """
 from __future__ import annotations
 
@@ -28,12 +23,20 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-PEAK_BF16 = 197e12
-PEAK_VPU = 3.7e12
-PEAK_BW = 819e9
+# Published dense peaks (NVIDIA H100 SXM data sheet, no sparsity) at the
+# full 700 W power limit: f32 outside the tensor cores, and HBM3.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"f32_flops": 67e12, "hbm_bytes": 3.35e12},
+}
 
 
-def analyze_pass(name, render_pass, data0, n_timed=4):
+def peaks_for(device_kind: str) -> dict:
+    if device_kind not in PEAKS:
+        raise KeyError(f"no published peaks for device {device_kind!r}")
+    return PEAKS[device_kind]
+
+
+def analyze_pass(name, render_pass, data0, peaks, n_timed=4):
     import jax
 
     lowered = jax.jit(render_pass).lower(data0, 0)
@@ -66,27 +69,25 @@ def analyze_pass(name, render_pass, data0, n_timed=4):
         "xla_bytes": bytes_acc,
         "achieved_gflops": flops / dt / 1e9,
         "achieved_gbs": bytes_acc / dt / 1e9,
-        "pct_vpu_peak": 100.0 * flops / dt / PEAK_VPU,
-        "pct_mxu_peak": 100.0 * flops / dt / PEAK_BF16,
-        "pct_bw_peak": 100.0 * bytes_acc / dt / PEAK_BW,
+        "pct_f32_peak": 100.0 * flops / dt / peaks["f32_flops"],
+        "pct_bw_peak": 100.0 * bytes_acc / dt / peaks["hbm_bytes"],
         "arithmetic_intensity": flops / max(bytes_acc, 1.0),
     }
 
 
 def main():
     import jax
-    import jax.numpy as jnp
 
-    import mitsuba3_plt_tpu as mi
     from mitsuba3_plt_tpu.config import RGB
     from mitsuba3_plt_tpu.core.rng import Sampler
     from mitsuba3_plt_tpu.integrators.common import sample_rays
     from mitsuba3_plt_tpu.integrators.path import PathIntegrator
     from mitsuba3_plt_tpu.integrators.plt import PLTIntegrator
     from mitsuba3_plt_tpu.librender.film import ImageBlock
-    from mitsuba3_plt_tpu.scene.presets import cornell_box
+    from mitsuba3_plt_tpu.scene.presets import cornell_box, grating_scene
 
-    backend = jax.default_backend()
+    kind = jax.devices()[0].device_kind
+    peaks = peaks_for(kind)
     rows = []
 
     # --- cbox classic path -------------------------------------------------
@@ -105,15 +106,13 @@ def main():
         return block.put_ordered(values, valid, spp_pass).data
 
     data0 = ImageBlock.create(W, H, 3, 0).data
-    r = analyze_pass("cbox path 500^2 spp8 d6", cbox_pass, data0)
+    r = analyze_pass("cbox path 500^2 spp8 d6", cbox_pass, data0, peaks)
     r["samples_per_s"] = W * H * spp_pass / r["pass_s"]
     rows.append(r)
 
     # --- gratings PLT ------------------------------------------------------
     gw, gh, gspp = 800, 600, 4
-    gscene, _ = mi.load_file(
-        "/root/reference/scenes/gratings/gratings.xml", resx=gw, resy=gh
-    )
+    gscene, _ = grating_scene(gw, gh)
     ginteg = PLTIntegrator(max_depth=6, rr_depth=4)
 
     def grat_pass(block_data, pass_idx):
@@ -126,25 +125,19 @@ def main():
         return block.put_ordered(values, valid, gspp).data
 
     gdata0 = ImageBlock.create(gw, gh, 3, 0).data
-    r = analyze_pass("gratings PLT 800x600 spp4 d6", grat_pass, gdata0)
+    r = analyze_pass("gratings PLT 800x600 spp4 d6", grat_pass, gdata0,
+                     peaks)
     r["samples_per_s"] = gw * gh * gspp / r["pass_s"]
     rows.append(r)
 
     # --- report ------------------------------------------------------------
     lines = [
-        "# Roofline / MFU analysis",
+        f"Device: {kind}. XLA cost analysis (flops / bytes accessed) of the "
+        "compiled render pass, divided by the steady-state pass time, "
+        f"against {peaks['f32_flops'] / 1e12:.0f} TFLOP/s f32 and "
+        f"{peaks['hbm_bytes'] / 1e12:.2f} TB/s HBM (published peaks).",
         "",
-        f"Backend: `{backend}`. XLA cost analysis (flops / bytes accessed) "
-        "of the exact compiled render pass, divided by the measured "
-        "steady-state pass time, against TPU v5e public peaks "
-        "(197 TFLOP/s bf16 MXU, ~3.7 TFLOP/s f32 VPU, 819 GB/s HBM).",
-        "",
-        "Ray tracing is scalar-heavy VPU + memory work — the MXU column "
-        "is expected to be ~0; the meaningful ceilings are the VPU and "
-        "HBM rows. Arithmetic intensity (flops/byte) above ~4.5 means "
-        "VPU-bound on v5e; below means HBM-bound.",
-        "",
-        "| pass | time (ms) | Msamples/s | GFLOP/s | GB/s | % VPU peak | "
+        "| pass | time (ms) | Msamples/s | GFLOP/s | GB/s | % f32 peak | "
         "% HBM peak | flops/byte |",
         "|---|---|---|---|---|---|---|---|",
     ]
@@ -153,32 +146,16 @@ def main():
             f"| {r['name']} | {r['pass_s'] * 1e3:.1f} | "
             f"{r.get('samples_per_s', 0) / 1e6:.2f} | "
             f"{r['achieved_gflops']:.0f} | {r['achieved_gbs']:.0f} | "
-            f"{r['pct_vpu_peak']:.1f}% | {r['pct_bw_peak']:.1f}% | "
+            f"{r['pct_f32_peak']:.1f}% | {r['pct_bw_peak']:.1f}% | "
             f"{r['arithmetic_intensity']:.1f} |"
         )
     lines += [
         "",
         "Caveat: XLA's cost analysis does not see inside Pallas custom "
-        "calls — the intersection, grating lobe-sum, and grating-sample "
-        "kernels' arithmetic is excluded from the FLOP/byte counts, so "
-        "both columns are lower bounds; since round 2's kernel work moved "
-        "most of the wave-path math into Pallas, the true VPU fraction is "
-        "substantially higher than the table shows (per-kernel device "
-        "times: use the JAX profiler trace, see ROUND2_NOTES).",
-        "",
-        "Interpretation: the dominant ceiling tells where the next "
-        "speedup must come from — if %VPU >> %HBM the kernel is "
-        "compute-bound (reduce per-lane arithmetic, e.g. fewer lobe "
-        "evaluations); if %HBM >> %VPU it is bandwidth-bound (shrink the "
-        "per-bounce lane state, fuse more aggressively).",
-        "",
+        "calls (the fused grating kernels), so both columns are lower "
+        "bounds on the gratings row.",
     ]
-    out = os.path.join(os.path.dirname(__file__), "..", "docs", "ROOFLINE.md")
-    with open(out, "w") as f:
-        f.write("\n".join(lines))
-    print("wrote", out)
-    for r in rows:
-        print(r)
+    print("\n".join(lines))
 
 
 if __name__ == "__main__":

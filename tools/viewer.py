@@ -1,7 +1,7 @@
 """Headless viewer / animation tool — the fork's GUI-layer role
 (reference scripts/rendering/gui/gui.py ttkbootstrap viewer +
 scripts/rendering/disk_animation cv2 turntable) redesigned for a display-
-less TPU host: progressive rendering with live PNG snapshots an external
+less accelerator host: progressive rendering with live PNG snapshots an external
 viewer can poll, polarization false-color inspection modes, and camera-
 orbit animation written as a PNG sequence + animated GIF.
 
